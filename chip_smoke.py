@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one GPU and hold its kernels to account.
+"""Drive the PyTorch port's main paths on one GPU and hold its kernels to account.
 
     python3 chip_smoke.py          # from the repository root, on a CUDA machine
 
 Phases, each printed as a JSON record on its own line:
 
 1. device: the card's name, the device count and its power limit;
-2. build: both CUDA kernels compiled from ``src/repro_torch/csrc`` (one nvcc
-   per source, in parallel);
+2. build: the four CUDA kernels compiled from ``src/repro_torch/csrc`` (one
+   nvcc per source, in parallel);
 3. counter: the fused observe counter kernel against its plain version,
-   bitwise, at the main path's shapes and on edge cases;
+   bitwise, at the simulator's shapes and on edge cases;
 4. walk: the interval-walk kernel against the plain walker, bitwise, over the
    whole SimState;
 5. e2e: ``simulate(app, "rainbow", intervals=8)`` for mcf, GUPS and mix1 at
    each app's own accesses per interval, bitwise equal to the JAX golden
    file ``tests/data/torch_rainbow_golden.json``, with each kernel launched
    exactly once per interval;
-6. the ``{"kernels": [...]}`` line: each kernel's launches, time, bound, the
+6. attention: the paged decode attention kernel against its plain version in
+   float32 and bfloat16, in the Pallas kernel's form at
+   ``tests/test_kernels.py``'s shapes and in the serving form (fresh lane +
+   block mass) at the serving shapes;
+7. gather: the block-migration copy kernel against its plain version,
+   bitwise, including all-skip and single-lane plans and bfloat16;
+8. serve: ``repro_torch.launch.serve`` at qwen3-0.6b's full width (28
+   layers), bf16, batch 8, 256 prompt + 64 generated tokens, with the
+   attention kernel launched once per layer per decode step and the gather
+   once per closed interval; then a profiled window of the same run; then
+   the float32 teacher-forced decode held to the JAX golden file
+   ``tests/data/torch_serve_golden.json`` (logits within tolerance, promoted
+   and evicted counts exact);
+9. the ``{"kernels": [...]}`` line: each kernel's launches, time, bound, the
    plain version's time and a library yardstick.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any mismatch raises, so
@@ -38,10 +51,19 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rainbow_golden.json")
+SERVE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_serve_golden.json")
 E2E_APPS = ("mcf", "GUPS", "mix1")
 INTERVALS = 8
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+SERVE_ARGS = ["--arch", "qwen3-0.6b", "--kv", "paged", "--batch", "8",
+              "--prompt-len", "256", "--tokens", "64", "--block-size", "16"]
+# stated tolerances, kernel vs plain version on the card (max abs and rel)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's own (test_kernels)
+MASS_TOL = 1e-5  # block mass: float32 sums in another order, both dtypes
+# port (float32, TF32 off) vs the JAX golden logits, full width
+SERVE_LOGIT_TOL = 1e-4
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 
 RECORDS: list[dict] = []
 
@@ -88,6 +110,9 @@ def _device_events(prof):
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue
+        # step markers and other user ranges span the timeline; not kernels
+        if getattr(ev, "is_user_annotation", False) or ev.key.startswith("ProfilerStep"):
+            continue
         dev_t = getattr(ev, "self_device_time_total", None)
         if dev_t is None:
             dev_t = getattr(ev, "self_cuda_time_total", 0)
@@ -111,11 +136,13 @@ def device_ms(torch, fn, reps: int) -> float | None:
 
 
 def bitwise_equal(torch, a, b) -> bool:
-    """Same dtype, shape and bits (float32 compared as int32 patterns)."""
+    """Same dtype, shape and bits (floats compared as integer patterns)."""
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -343,6 +370,380 @@ def check_e2e(torch, golden: dict) -> dict:
     return {"runs": runs, "launches": launches}
 
 
+def _max_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _within(torch, got, want, tol: float) -> bool:
+    return bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+
+
+# test_kernels.py's _rainbow_attention shapes: (B, HP, KVS, hd, block, nblk)
+PALLAS_ATTN_SHAPES = ((1, 4, 4, 16, 4, 3), (2, 8, 4, 32, 8, 6),
+                      (3, 8, 2, 64, 16, 4), (2, 4, 2, 32, 8, 1))
+# the serve phase's shapes: qwen3-0.6b heads, batch 8, 20 blocks of 16, 10 hot slots
+SERVE_ATTN = dict(b=8, hp=16, kvs=8, hd=128, block=16, nblk=20, hot=10)
+
+
+def attention_inputs(torch, np, rng, dtype, b, hp, kvs, hd, block, nblk, hot,
+                     fresh: bool, dev):
+    """(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new): a capacity pool of
+    b * nblk blocks, `hot` hot rows, and vidx redirecting some blocks (serving
+    form: home blocks, a few resident) or random pool rows (Pallas form)."""
+    nb = b * nblk
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    q = rand(b, hp, hd)
+    cap_k, cap_v = rand(nb, block, kvs, hd), rand(nb, block, kvs, hd)
+    hot_k, hot_v = rand(hot, block, kvs, hd), rand(hot, block, kvs, hd)
+    if fresh:
+        vidx = np.arange(nb, dtype=np.int32).reshape(b, nblk)
+        flat = rng.choice(nb, min(hot, nb), replace=False)
+        vidx.reshape(-1)[flat] = nb + np.arange(len(flat), dtype=np.int32)
+        k_new, v_new = rand(b, kvs, hd), rand(b, kvs, hd)
+    else:
+        vidx = rng.integers(0, nb + hot, (b, nblk)).astype(np.int32)
+        k_new = v_new = None
+    vidx = torch.from_numpy(vidx).to(dev)
+    return q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new
+
+
+def check_attention(torch, np) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rainbow_attention.ops import rainbow_attention
+    from repro_torch.kernels.rainbow_attention.ref import rainbow_attention_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    cases = {}
+    worst = {"out": 0.0, "mass": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        shapes = [(f"pallas-{b}x{hp}x{kvs}x{hd}x{blk}x{nblk}", False,
+                   dict(b=b, hp=hp, kvs=kvs, hd=hd, block=blk, nblk=nblk, hot=4),
+                   max(nblk * blk - 2, 1))
+                  for b, hp, kvs, hd, blk, nblk in PALLAS_ATTN_SHAPES]
+        full = SERVE_ATTN["nblk"] * SERVE_ATTN["block"]
+        shapes += [(f"serve-len{n}", True, SERVE_ATTN, n) for n in (0, 1, 150, full - 1)]
+        for name, fresh, shape, length in shapes:
+            args = attention_inputs(torch, np, rng, dtype, **shape, fresh=fresh, dev=dev)
+            ker = rainbow_attention(*args[:6], length, *args[6:], with_mass=fresh)
+            ref = rainbow_attention_ref(*args[:6], length, *args[6:], with_mass=fresh)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[tag]
+            rec = {"out_err": _max_err(torch, ker[0], ref[0]), "tol": tol,
+                   "ok": _within(torch, ker[0], ref[0], tol)}
+            worst["out"] = max(worst["out"], rec["out_err"] / tol)
+            if fresh:
+                rec["mass_err"] = _max_err(torch, ker[1], ref[1])
+                rec["mass_ok"] = _within(torch, ker[1], ref[1], MASS_TOL)
+                rec["ok"] = rec["ok"] and rec["mass_ok"]
+                worst["mass"] = max(worst["mass"], rec["mass_err"])
+            cases[f"{tag}-{name}"] = rec
+            if not rec["ok"]:
+                fail(f"rainbow_attention kernel != plain version on {tag}-{name}: {rec}")
+
+    # timing at the serving shape in bf16 at the last decode step's length
+    s = SERVE_ATTN
+    length = s["nblk"] * s["block"] - 1
+    args = attention_inputs(torch, np, rng, torch.bfloat16, **s, fresh=True, dev=dev)
+
+    def kernel():
+        rainbow_attention(*args[:6], length, *args[6:], with_mass=True)
+
+    def plain():
+        rainbow_attention_ref(*args[:6], length, *args[6:], with_mass=True)
+
+    # yardstick: SDPA over the already-gathered, head-expanded K/V (untimed prep)
+    q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new = args
+    b, hp, hd, kvs = s["b"], s["hp"], s["hd"], s["kvs"]
+    idx = vidx.long()
+    kk = torch.cat([torch.cat([cap_k, hot_k])[idx].reshape(b, -1, kvs, hd)[:, :length],
+                    k_new[:, None]], 1)
+    vv = torch.cat([torch.cat([cap_v, hot_v])[idx].reshape(b, -1, kvs, hd)[:, :length],
+                    v_new[:, None]], 1)
+    k4 = kk.repeat_interleave(hp // kvs, 2).transpose(1, 2).contiguous()
+    v4 = vv.repeat_interleave(hp // kvs, 2).transpose(1, 2).contiguous()
+    q4 = q[:, :, None]
+
+    def library():
+        F.scaled_dot_product_attention(q4, k4, v4)
+
+    elem = 2
+    nbytes = (2 * b * (length + 1) * kvs * hd * elem  # readable K and V rows, once
+              + b * s["nblk"] * 4  # vidx
+              + 2 * b * hp * hd * elem  # q in, out
+              + b * s["nblk"] * 4)  # mass out
+    flops = 4 * b * hp * (length + 1) * hd
+    rec = {"phase": "attention", "cases": cases, "worst_out_err_over_tol": worst["out"],
+           "worst_mass_err": worst["mass"], "mass_tol": MASS_TOL,
+           "timed_shape": {**s, "length": length, "dtype": "bfloat16"},
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+           else "operations"}
+    for name, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        rec[f"{name}event_ms"] = cuda_ms(torch, fn, reps=50)
+        rec[f"{name}ms"] = device_ms(torch, fn, reps=50) or rec[f"{name}event_ms"]
+    emit(rec)
+    return rec
+
+
+def check_gather(torch, np) -> dict:
+    from repro_torch.kernels.block_gather.ops import block_gather_
+    from repro_torch.kernels.block_gather.ref import block_gather_ref_
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def plan(nb, hot, k, all_skip=False):
+        """test_kernels.py's _block_gather plan: distinct dst among valid lanes."""
+        src = rng.integers(-1, nb, k).astype(np.int32)
+        if all_skip:
+            src[:] = -1
+        dst = np.resize(rng.choice(hot, min(k, hot), replace=False), k).astype(np.int32)
+        seen = set()
+        for i in range(k):
+            if src[i] >= 0 and int(dst[i]) in seen:
+                src[i] = -1
+            elif src[i] >= 0:
+                seen.add(int(dst[i]))
+        return torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+
+    def pools(layers, nb, hot, row, dtype, pairs):
+        out = []
+        for _ in range(pairs):
+            cap = torch.from_numpy(rng.standard_normal((layers, nb, *row), dtype=np.float32))
+            h = torch.from_numpy(rng.standard_normal((layers, hot, *row), dtype=np.float32))
+            out.append((cap.to(dev, dtype), h.to(dev, dtype)))
+        return out
+
+    serve_row = (16, 8, 128)
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        specs = {  # name: (layers, NB, HOT, lanes, row, pairs, all_skip)
+            "24nb": (1, 24, 6, 6, (4, 2, 8), 1, False),
+            "8nb": (1, 8, 3, 5, (4, 2, 8), 1, False),
+            "single_lane": (1, 64, 16, 1, (4, 2, 8), 1, False),
+            "no_valid_lanes": (1, 16, 4, 4, (4, 2, 8), 1, True),
+            "odd_row": (3, 12, 5, 5, (3, 1, 3), 2, False),
+            "serve": (28, 160, 10, 10, serve_row, 2, False),
+            "serve_all_skip": (28, 160, 10, 10, serve_row, 2, True),
+        }
+        for name, (layers, nb, hot, k, row, npairs, skip) in specs.items():
+            src, dst = plan(nb, hot, k, skip)
+            ker = pools(layers, nb, hot, row, dtype, npairs)
+            ref = [(c.clone(), h.clone()) for c, h in ker]
+            before = [h.clone() for _, h in ker]
+            block_gather_(ker, src, dst)
+            block_gather_ref_(ref, src, dst)
+            torch.cuda.synchronize()
+            same = all(bitwise_equal(torch, a[1], b[1]) for a, b in zip(ker, ref))
+            if skip:
+                same = same and all(bitwise_equal(torch, a[1], b) for a, b in zip(ker, before))
+            cases[f"{tag}-{name}"] = same
+            if not same:
+                fail(f"block_gather kernel != plain version on {tag}-{name}")
+
+    layers, nb, hot, k = 28, 160, 10, 10
+    src, dst = plan(nb, hot, k)
+    pairs = pools(layers, nb, hot, serve_row, torch.bfloat16, 2)
+    valid = src >= 0
+    s_ok, d_ok = src[valid].long(), dst[valid].long()
+    n_valid = int(valid.sum())
+
+    def kernel():
+        block_gather_(pairs, src, dst)
+
+    def plain():
+        block_gather_ref_(pairs, src, dst)
+
+    def library():  # index_select + index_copy_ on the valid lanes (untimed filter)
+        for cap, h in pairs:
+            h.index_copy_(1, d_ok, cap.index_select(1, s_ok))
+
+    row_bytes = 16 * 8 * 128 * 2
+    nbytes = 2 * n_valid * layers * 2 * row_bytes + 2 * k * 4
+    rec = {"phase": "gather", "cases": cases, "timed_shape": {
+               "layers": layers, "capacity_blocks": nb, "hot_slots": hot, "lanes": k,
+               "valid_lanes": n_valid, "row": list(serve_row), "dtype": "bfloat16"},
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    for name, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        rec[f"{name}event_ms"] = cuda_ms(torch, fn, reps=50)
+        rec[f"{name}ms"] = device_ms(torch, fn, reps=50) or rec[f"{name}event_ms"]
+    emit(rec)
+    return rec
+
+
+def check_serve(torch) -> dict:
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels.block_gather.ops import block_gather_
+    from repro_torch.kernels.rainbow_attention.ops import rainbow_attention
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rainbow_attention.launches = 0
+    block_gather_.launches = 0
+    res = serve.main(SERVE_ARGS)
+    n_attn, n_gather = rainbow_attention.launches, block_gather_.launches
+    cfg, pcfg, steps = res["cfg"], res["pcfg"], res["decode_steps"]
+    want_attn = cfg.num_layers * steps
+    want_gather = steps // pcfg.interval_steps
+    if n_attn != want_attn or n_gather != want_gather or len(res["reports"]) != want_gather:
+        fail(f"serve launches: attention {n_attn} (expected {want_attn} = "
+             f"{cfg.num_layers} layers x {steps} steps), gather {n_gather} "
+             f"(expected {want_gather} closed intervals)")
+    promoted = sum(int(r["promoted"]) for r in res["reports"])
+    evicted = sum(int(r["evicted"]) for r in res["reports"])
+    toks = res["tokens"]
+    b, gen = toks.shape
+    if (gen != 64 or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+            or promoted <= 0 or res["resident"] > pcfg.hot_slots):
+        fail(f"serve output: tokens {tuple(toks.shape)}, promoted {promoted}, "
+             f"resident {res['resident']} of {pcfg.hot_slots} hot slots")
+    wall = res["wall_s"]
+    rec = {
+        "phase": "serve", "args": " ".join(SERVE_ARGS), "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "paged": {"block_size": pcfg.block_size, "blocks_per_seq": pcfg.blocks_per_seq,
+                  "hot_slots": pcfg.hot_slots, "top_n": pcfg.top_n,
+                  "max_promotions": pcfg.max_promotions,
+                  "interval_steps": pcfg.interval_steps},
+        "decode_steps": steps, "wall_s": wall, "ms_per_step": wall * 1e3 / steps,
+        "tokens_per_s": b * steps / wall, "generated_tokens_per_s": b * gen / wall,
+        "launches": {"rainbow_attention": n_attn, "block_gather": n_gather},
+        "intervals": len(res["reports"]), "promoted": promoted, "evicted": evicted,
+        "resident_at_end": res["resident"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "first_tokens": toks[0, :8].tolist(),
+    }
+
+    # profiled window of the same run: the prompt's last 16 decode steps
+    plen = res["prompt"].shape[1]
+    active = min(16, steps // 4)
+    start = max(1, plen - active)
+    mark = {}
+
+    def on_step(i):  # after decode step i; the window is steps start..start+active-1
+        if i in (start - 1, start + active - 1):
+            torch.cuda.synchronize()
+            mark[i] = time.perf_counter()
+        prof.step()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=start - 1, warmup=1, active=active,
+                                   repeat=1)) as prof:
+        serve.serve(cfg, pcfg, res["params"], res["prompt"], gen, on_step=on_step)
+    events = _device_events(prof)
+    window_ms = (mark[start + active - 1] - mark[start - 1]) * 1e3
+    busy = sum(ms for _, ms, _ in events)
+    by = {}
+    for key, ms, c in events:
+        name = ("rainbow_attention" if "rainbow_attention_kernel" in key
+                or "mass_reduce_kernel" in key else "block_gather"
+                if "block_gather_kernel" in key else "gemm"
+                if any(w in key.lower() for w in ("gemm", "gemv", "nvjet")) else "other")
+        by[name] = by.get(name, 0.0) + ms
+    rec["profile"] = {
+        "window_steps": active, "window_first_step": start, "wall_ms": window_ms,
+        "device_ops_per_step": sum(c for _, _, c in events) / active,  # kernels + copies
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "device_idle_share": max(0.0, 1.0 - busy / window_ms) if busy > 0 else "not measured",
+        "device_ms_by_kind": by,
+        "top_kernels": [[key, round(ms, 4), c] for key, ms, c in
+                        sorted(events, key=lambda e: -e[1])[:12]],
+    }
+    # every weight is read once per step, except the token table (B rows)
+    tok = res["params"]["embed"]["tok"]
+    read = (sum(t.numel() * t.element_size() for t in _leaves_of(res["params"]))
+            - tok.numel() * tok.element_size() + b * tok[0].numel() * tok.element_size())
+    rec["profile"]["weights_read_bytes_per_step"] = read
+    rec["profile"]["weights_bound_ms_per_step"] = read / HBM_BYTES_PER_S * 1e3
+    emit(rec)
+    return rec
+
+
+def _leaves_of(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves_of(v)
+        else:
+            yield v
+
+
+def check_serve_golden(torch, np, golden: dict, device) -> dict:
+    """The port's teacher-forced float32 decode vs the JAX golden (see
+    scripts/make_torch_serve_golden.py): same weights (digest), logits within
+    SERVE_LOGIT_TOL, per-interval promoted/evicted counts exact."""
+    from repro_torch import configs, interop
+    from repro_torch.memory.kvcache import PagedConfig, paged_init
+    from repro_torch.serving.rainbow_decode import rainbow_decode_step
+
+    get = configs.get_reduced_config if golden["reduced"] else configs.get_config
+    cfg = dataclasses.replace(get(golden["arch"]), num_layers=golden["num_layers"],
+                              dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    tree = interop.numpy_params(cfg, golden["seed"])
+    digest = interop.weights_digest(tree)
+    if digest != golden["weights_sha256"]:
+        fail(f"serve golden: numpy's stream made other weights here (sha256 {digest}, "
+             f"golden {golden['weights_sha256']}); numpy {np.__version__}")
+    params = interop.params_from_numpy(cfg, tree, device)
+    del tree
+    setup_s = time.perf_counter() - t0
+    pcfg = PagedConfig(**golden["paged"])
+    stream = torch.tensor(golden["stream"], dtype=torch.int32, device=device)
+    ids = torch.tensor(golden["logit_ids"], device=device)
+    b, steps = stream.shape
+    kv = paged_init(cfg, pcfg, b, 1, cfg.num_layers, device)
+    reports, logits, at_ref, port_arg, closed_after = [], [], [], [], []
+    ref_arg = np.asarray(golden["argmax"], dtype=np.int64)
+    for t in range(steps):
+        n = len(reports)
+        out, kv = rainbow_decode_step(cfg, pcfg, params, stream[:, t:t + 1], kv,
+                                      reports=reports)
+        if len(reports) > n:
+            closed_after.append(t)
+        row = out[:, 0, :cfg.vocab_size]
+        logits.append(row[:, ids])
+        at_ref.append(row[torch.arange(b, device=device),
+                          torch.from_numpy(ref_arg[t]).to(device)])
+        port_arg.append(row.argmax(dim=1))
+    got = torch.stack(logits).cpu().double().numpy()
+    want = np.asarray(golden["logits"], dtype=np.float64)
+    top = np.asarray(golden["top2"], dtype=np.float64)
+    # the logit at the reference's argmax too, against the reference's value
+    err = max(float(np.abs(got - want).max()),
+              float(np.abs(torch.stack(at_ref).cpu().double().numpy() - top[:, :, 0]).max()))
+    decidable = (top[:, :, 0] - top[:, :, 1]) > 2 * SERVE_LOGIT_TOL
+    agree = torch.stack(port_arg).cpu().numpy().astype(np.int64) == ref_arg
+    ivals = [{"after_step": t, "promoted": int(r["promoted"]), "evicted": int(r["evicted"])}
+             for t, r in zip(closed_after, reports)]
+    rec = {"phase": "serve_golden", "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": b, "steps": steps, "dtype": "float32",
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32) if device.type == "cuda"
+           else False, "weights_sha256": digest, "setup_s": setup_s,
+           "max_logit_err": err, "tol": SERVE_LOGIT_TOL,
+           "argmax_agree": int(agree.sum()), "argmax_total": int(agree.size),
+           "argmax_decidable_disagree": int((~agree & decidable).sum()),
+           "intervals": ivals, "golden_intervals": golden["intervals"]}
+    if device.type == "cuda":
+        emit(rec)
+    if err > SERVE_LOGIT_TOL or rec["argmax_decidable_disagree"]:
+        fail(f"serve golden: logits differ by {err} (tol {SERVE_LOGIT_TOL}) or "
+             f"{rec['argmax_decidable_disagree']} decidable argmax differ")
+    if ivals != golden["intervals"]:
+        fail(f"serve golden: intervals {ivals} != golden {golden['intervals']}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -363,6 +764,8 @@ def main() -> int:
         from repro_torch.kernels import build
         with open(GOLDEN) as f:
             golden = json.load(f)
+        with open(SERVE_GOLDEN) as f:
+            serve_golden = json.load(f)
     except (ImportError, OSError) as exc:
         print(f"chip_smoke: the repository is not here ({exc})", file=sys.stderr)
         return 1
@@ -371,7 +774,8 @@ def main() -> int:
     card = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "numpy": np.__version__})
 
     t0 = time.perf_counter()
     built = build.build()
@@ -381,9 +785,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: v["seconds"] for k, v in built.items()}})
 
-    counter = check_counter(torch, np)
-    walk = check_walk(torch, np)
-    e2e = check_e2e(torch, golden)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    counter = timed("counter", check_counter, torch, np)
+    walk = timed("walk", check_walk, torch, np)
+    e2e = timed("e2e", check_e2e, torch, golden)
+    attn = timed("attention", check_attention, torch, np)
+    gather = timed("gather", check_gather, torch, np)
+    srv = timed("serve", check_serve, torch)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    try:
+        timed("serve_golden", check_serve_golden, torch, np, serve_golden,
+              torch.device("cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit({"phase": "seconds", **seconds})
     if any(m in ("jax", "repro") or m.startswith(("jax.", "repro.")) for m in sys.modules):
         fail("the port imported JAX or the JAX package")
 
@@ -410,6 +833,35 @@ def main() -> int:
             "timing": "ms: device busy time per launch (torch.profiler); plain_ms: "
                       "host clock of the Python walker; event_ms: CUDA-event time",
             "note": "latency-bound: one serial dependence chain through the LRU state",
+        },
+        {
+            "name": "rainbow_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/rainbow_attention.cu",
+            "replaces": "src/repro/kernels/rainbow_attention/rainbow_attention.py:94",
+            "launches": srv["launches"]["rainbow_attention"],
+            "max_abs_err": max(max(c["out_err"], c.get("mass_err", 0.0))
+                               for c in attn["cases"].values()),
+            "parity": f"out atol=rtol {ATTN_TOL}, mass {MASS_TOL}",
+            "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+            "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+            "library_ms": attn["library_ms"], "event_ms": attn["event_ms"],
+            "shape": attn["timed_shape"],
+            "timing": "ms, plain_ms, library_ms (F.scaled_dot_product_attention on "
+                      "the gathered K/V): device busy time per call (torch.profiler); "
+                      "event_ms: CUDA-event time per call",
+        },
+        {
+            "name": "block_gather", "route": "cuda",
+            "source": "src/repro_torch/csrc/block_gather.cu",
+            "replaces": "src/repro/kernels/block_gather/block_gather.py:31",
+            "launches": srv["launches"]["block_gather"], "max_abs_err": 0,
+            "parity": "bitwise", "ms": gather["ms"], "plain_ms": gather["plain_ms"],
+            "bound_ms": gather["bound_ms"], "bound_by": "bytes",
+            "library_ms": gather["library_ms"], "event_ms": gather["event_ms"],
+            "shape": gather["timed_shape"],
+            "timing": "ms, plain_ms, library_ms (index_select + index_copy_ per "
+                      "pool): device busy time per call (torch.profiler); "
+                      "event_ms: CUDA-event time per call",
         },
     ]}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

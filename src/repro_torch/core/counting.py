@@ -77,8 +77,18 @@ def stage1_record(
     NVM writes carry `write_weight` (paper: "NVM write operations have a
     higher weighting of the counter value").
     """
+    return stage1_record_weighted(state, superpage_ids,
+                                  torch.where(is_write, write_weight, 1))
+
+
+def stage1_record_weighted(
+    state: Stage1State, superpage_ids: torch.Tensor, weight: torch.Tensor
+) -> Stage1State:
+    """Count one batch per superpage with explicit per-lane weights (<0 ids
+    ignored); Layer B feeds quantized attention mass here.  Weights are the
+    reference's uint32 values carried as int32."""
     valid = superpage_ids >= 0
-    inc = torch.where(valid, torch.where(is_write, write_weight, 1), 0)
+    inc = torch.where(valid, weight.to(torch.int32), 0)
     idx = torch.where(valid, superpage_ids, 0)
     return Stage1State(counts=_saturating_add(state.counts, idx, inc))
 

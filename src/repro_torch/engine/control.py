@@ -127,10 +127,12 @@ def plan_and_apply(
     threshold: torch.Tensor,
     timing: TimingParams,
     now: torch.Tensor,
+    extra_exclude: torch.Tensor | None = None,  # bool[N, P] extra candidate mask
 ) -> PlanOutcome:
     """Close the interval's decision: classify hot pages and admit migrations.
 
-    Candidates are the K best (Eq. 1) monitored pages not already resident;
+    Candidates are the K best (Eq. 1) monitored pages not already resident
+    (and not excluded by `extra_exclude`, e.g. Layer B's beyond-length blocks);
     admission runs Eq. 1/2 against the slot manager best-first into victims
     cheapest-first, then the remap/bitmap tables evict + install.
     """
@@ -147,7 +149,10 @@ def plan_and_apply(
         remap, torch.clamp(psn, min=0).unsqueeze(1),
         torch.arange(p, dtype=torch.int32, device=dev).unsqueeze(0),
     )
-    score = torch.where(already & valid_row, -math.inf, score).reshape(-1)
+    score = torch.where(already & valid_row, -math.inf, score)
+    if extra_exclude is not None:
+        score = torch.where(extra_exclude, -math.inf, score)
+    score = score.reshape(-1)
 
     k = min(cfg.max_moves, score.shape[0])
     top_idx = order_desc(score)[:k]

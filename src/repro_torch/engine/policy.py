@@ -1,9 +1,9 @@
 """ControlPolicy: the declarative knob surface of the interval controller.
 
 A frozen dataclass of the §III-B/C controller knobs plus a small registry of
-named presets.  This slice registers the simulator's "sim-rainbow" preset;
-the HSCC, Nomad and serving presets come with the policies that use them
-(ROADMAP.md Queue 1 items 6, 9 and 12).
+named presets: the simulator's "sim-rainbow" and Layer B's "serving-default".
+The HSCC and Nomad presets come with the policies that use them (ROADMAP.md
+Queue 1 items 6 and 9).
 """
 from __future__ import annotations
 
@@ -20,18 +20,21 @@ COUNTER_BACKENDS = ("kernel", "scatter")
 class ControlPolicy:
     """Interval-controller knobs, layer-agnostic.
 
-    top_n            stage-2 monitor rows (hot superpages)
+    interval_steps   observe batches per monitoring interval (Layer B decode
+                     steps; Layer A closes every chunk, i.e. 1)
+    top_n            stage-2 monitor rows (hot superpages / superblocks)
     max_promotions   per-interval migration-plan size K (fixed shapes)
     hot_slots        performance-tier capacity in pages (DRAM slots)
     write_weight     stage-1 weighting of NVM writes vs reads (§III-B)
     threshold_init   initial adaptive admission threshold (§III-C)
     counter_backend  "kernel" (fused counting kernel) or "scatter"
 
-    The reference's Layer-B and Nomad knobs (interval_steps, counter_decay,
-    async_window, abort_on_write, shadow_residency) come with the slices that
-    use them (ROADMAP.md Queue 1 items 9 and 12).
+    The reference's other knobs (counter_decay, async_window, abort_on_write,
+    shadow_residency) come with the slices that use them (ROADMAP.md Queue 1
+    item 9); every preset ported so far leaves them at their defaults.
     """
 
+    interval_steps: int = 8
     top_n: int = 16
     max_promotions: int = 64
     hot_slots: int = 256
@@ -41,6 +44,10 @@ class ControlPolicy:
 
     def validate(self, context: str = "ControlPolicy") -> "ControlPolicy":
         """Reject impossible knob settings with a clear error, returning self."""
+        if self.interval_steps < 1:
+            raise ValueError(
+                f"{context}: interval_steps must be >= 1 (got {self.interval_steps})"
+            )
         if self.top_n < 1:
             raise ValueError(f"{context}: top_n must be >= 1 (got {self.top_n})")
         if self.max_promotions < 1:
@@ -59,6 +66,10 @@ class ControlPolicy:
                 f"expected one of {COUNTER_BACKENDS}"
             )
         return self
+
+    def replace(self, **overrides: Any) -> "ControlPolicy":
+        """dataclasses.replace + validate."""
+        return dataclasses.replace(self, **overrides).validate()
 
     def control_config(self, num_units: int, pages_per_unit: int):
         """The engine-internal ControlConfig for one controller instance."""
@@ -109,14 +120,24 @@ def available_policies() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+@register_policy("serving-default")
+def _serving_default(**_: Any) -> ControlPolicy:
+    """Layer B defaults (the reference's ControlPolicy field defaults)."""
+    return ControlPolicy()
+
+
 @register_policy("sim-rainbow")
 def _sim_rainbow(mc=None) -> ControlPolicy:
-    """Paper §IV-F simulator parameters, read off a MachineConfig."""
+    """Paper §IV-F simulator parameters, read off a MachineConfig.
+
+    Layer A closes the controller once per trace chunk -> interval_steps = 1.
+    """
     if mc is None:
         from repro_torch.sim.config import MachineConfig
 
         mc = MachineConfig()
     return ControlPolicy(
+        interval_steps=1,
         top_n=mc.top_n,
         max_promotions=512,
         hot_slots=mc.dram_pages,

@@ -9,8 +9,12 @@ import torch
 
 
 def t(x) -> torch.Tensor:
-    """numpy (or JAX) array -> CPU tensor, uint16/uint32 carried as int32."""
+    """numpy (or JAX) array -> CPU tensor, uint16/uint32 carried as int32,
+    bfloat16 kept as bfloat16 (same bits)."""
     arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr.view(np.uint16), copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
     if arr.dtype == np.uint16:
         arr = arr.astype(np.int32)
     elif arr.dtype == np.uint32:
@@ -26,13 +30,18 @@ def same_bits(a, b) -> bool:
 
 def tree_diff(port: dict, ref, path: str = "") -> list[str]:
     """Paths where a port numpy tree (interop.to_numpy) differs from the
-    reference object tree (fields read by name)."""
+    reference object tree (fields read by name); the reference's bfloat16
+    arrays are compared as the float32 the port's tree holds."""
     bad = []
     for name, val in port.items():
         sub = ref[name] if isinstance(ref, dict) else getattr(ref, name)
         if isinstance(val, dict):
             bad += tree_diff(val, sub, f"{path}.{name}")
-        elif not same_bits(val, np.asarray(sub)):
+            continue
+        want = np.asarray(sub)
+        if want.dtype.name == "bfloat16":
+            want = want.astype(np.float32)
+        if not same_bits(val, want):
             bad.append(f"{path}.{name}")
     return bad
 
