@@ -1,8 +1,9 @@
 """Carry state and parameters between this package and the JAX reference as numpy.
 
 The reference's ``EngineState`` (``SimState`` + ``RainbowState``), its
-serving ``RainbowKV`` and its model parameter tree share field names and
-keys with this package's, so they are exchanged as nested numpy arrays
+serving ``RainbowKV``, its model parameter tree and its train state
+(``{"params", "opt": {step, master, m, v}}``) share field names and keys
+with this package's, so they are exchanged as nested numpy arrays
 looked up by field name: attributes of the reference's objects (after
 ``jax.tree.map(np.asarray, state)``) or keys of nested dicts.  The
 reference's uint16 stage counters and uint32 bitmap words travel in their
@@ -25,6 +26,7 @@ from repro_torch.core.remap import RemapState
 from repro_torch.engine.simloop import EngineState
 from repro_torch.memory.kvcache import RainbowKV
 from repro_torch.models import model as M
+from repro_torch.utils.tree import tree_map
 
 #: (port class, field) -> the reference's numpy dtype where it differs.
 _REF_DTYPES = {
@@ -144,7 +146,7 @@ def numpy_params(cfg, seed: int) -> dict:
     arrays, drawn from ``numpy.random.default_rng(seed)`` (the same on any
     machine whose numpy keeps the stream; `weights_digest` checks that)."""
     f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    return _map(M.init_params(f32, np.random.default_rng(seed)), lambda t: t.numpy())
+    return tree_map(lambda t: t.numpy(), M.init_params(f32, np.random.default_rng(seed)))
 
 
 def weights_digest(tree) -> str:
@@ -164,5 +166,22 @@ def weights_digest(tree) -> str:
     return h.hexdigest()
 
 
-def _map(tree, fn):
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def train_state_from_numpy(cfg, tree, device="cpu") -> dict:
+    """The reference's train state {"params", "opt": {"step", "master", "m",
+    "v"}} (nested numpy, e.g. ``jax.tree.map(np.asarray, state)``) -> the
+    port's, on `device`; params keep their dtype, the optimizer trees are
+    float32 and the step an int32 0-d tensor."""
+    opt = tree["opt"]
+    return {
+        "params": params_from_numpy(cfg, tree["params"], device),
+        "opt": {
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                 device=device),
+            **{k: params_from_numpy(cfg, opt[k], device) for k in ("master", "m", "v")},
+        },
+    }
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """Port train state -> nested dict of numpy arrays (bfloat16 as float32)."""
+    return tree_map(_array, state)

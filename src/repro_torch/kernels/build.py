@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("page_counter", "tlb_walk", "rainbow_attention", "block_gather")
+KERNEL_SOURCES = ("page_counter", "tlb_walk", "rainbow_attention", "block_gather",
+                  "flash_attention")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

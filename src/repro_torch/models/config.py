@@ -1,8 +1,8 @@
 """Model configuration: the dense-family subset of the reference's ModelConfig.
 
 Same field names and defaults as ``repro.models.config.ModelConfig`` for the
-fields the dense decode path reads, so a configuration crosses over field by
-field.  Only tp = 1 is ported: the padded head and kv-slot counts are those
+fields the dense decode and training paths read, so a configuration crosses
+over field by field.  Only tp = 1 is ported: the padded head and kv-slot counts are those
 of one device.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Shared model building blocks of the dense decode path: norms, RoPE, the
-gated MLP, embeddings and the LM head.
+"""Shared model building blocks of the dense family: norms, RoPE, the gated
+MLP, embeddings, the LM head and the cross-entropy loss.
 
 The reference's conventions hold: params are nested dicts of tensors,
 layer-stacked leaves carry a leading L dim, every matrix product accumulates
@@ -36,11 +36,36 @@ def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype | None = Non
     w2 = w.reshape(w.shape[0], -1)
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         y = x2 @ w2
+    elif out_dtype == torch.float32:
+        y = _MatmulF32.apply(x2, w2)
     elif x.is_cuda:
-        y = torch.mm(x2, w2, out_dtype=torch.float32) if out_dtype == torch.float32 else x2 @ w2
+        y = x2 @ w2
     else:
         y = x2.float() @ w2.float()
     return y.to(out_dtype).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """A float32 product of bf16 x, w (``torch.mm(x, w, out_dtype=float32)``
+    on the card, which has no derivative in PyTorch; the widened product on
+    the CPU) with the reference's gradient.  JAX's transpose of a
+    ``dot_general`` with ``preferred_element_type=float32`` takes the float32
+    output gradient into a float32 product with the other bf16 operand and
+    rounds the result to the operand's dtype; so does this backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = (g @ w.float().T).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = (x.float().T @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def init_device(gen) -> torch.device:
@@ -151,7 +176,7 @@ def embed_init(cfg, gen) -> Params:
 
 
 def embed_lookup(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    return F.embedding(tokens.long(), p["tok"])
 
 
 def lm_logits(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -163,3 +188,12 @@ def lm_logits(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
         mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
         logits = torch.where(mask, logits, -1e9)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean CE over mask==1 positions. logits fp32 [B,S,V]; labels int [B,S]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

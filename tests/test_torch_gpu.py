@@ -14,17 +14,26 @@ import pytest
 import torch
 
 from repro_torch import configs, interop
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.engine.simloop import make_chunks_np
 from repro_torch.kernels.block_gather import ops as gather_ops
 from repro_torch.kernels.block_gather.ref import block_gather_ref_
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (
+    expand_kv, flash_attention_lse_ref, flash_attention_ref,
+)
 from repro_torch.kernels.page_counter import ops
-from repro_torch.kernels.page_counter.ref import fused_observe_count_ref
+from repro_torch.kernels.page_counter.ref import fused_observe_count_ref, two_stage_count_ref
 from repro_torch.kernels.rainbow_attention import ops as attn_ops
 from repro_torch.kernels.rainbow_attention.ref import rainbow_attention_ref
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.memory import kvcache
+from repro_torch.models import layers, model
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.serving.rainbow_decode import rainbow_decode_step
 from repro_torch.sim import config, runner, tlbsim
+from repro_torch.train.step import TrainStepConfig, build_train_step
+from repro_torch.utils.tree import tree_leaves
 from torch_port_util import cuda_device, metrics_diff, t, tree_diff  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -229,3 +238,158 @@ def test_teacher_forced_decode_on_gpu_equals_cpu_port(cuda_device):
     (cl, cr), (gl, gr) = runs["cpu"], runs[str(cuda_device)]
     torch.testing.assert_close(gl, cl, atol=1e-5, rtol=1e-5)
     assert gr == cr and sum(p for p, _ in cr) > 0
+
+
+# (B, S, HP, KVS, hd, causal): tests/test_kernels.py's sweep, GQA, ragged
+# lengths, every head_dim the kernel is built for
+FLASH_CASES = {
+    "1x128x2x32-causal": (1, 128, 2, 2, 32, True),
+    "2x256x4x64-causal": (2, 256, 4, 4, 64, True),
+    "1x256x1x128-full": (1, 256, 1, 1, 128, False),
+    "gqa-2x128x16on8x128": (2, 128, 16, 8, 128, True),
+    "ragged-1x200x4on2x64": (1, 200, 4, 2, 64, True),
+    "ragged-full-1x77x2x32": (1, 77, 2, 2, 32, False),
+    "hd16-2x40x4on2x16": (2, 40, 4, 2, 16, True),
+    "single-row-1x1x2x16": (1, 1, 2, 1, 16, True),
+}
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+# bf16 out vs the plain version with P kept in float32 (as the kernel keeps
+# it) on the same inputs: two roundings of nearly equal float32 sums, so at
+# most one bf16 ulp apart (2**-7 relative at worst)
+FLASH_BF16_P32_TOL = {"atol": 1e-5, "rtol": 1e-2}
+
+
+def _flash_inputs(shape, dtype, device, rng, grad=False):
+    b, s, hp, kvs, hd, _ = shape
+    return [t(rng.standard_normal(sh, dtype=np.float32)).to(device, dtype).requires_grad_(grad)
+            for sh in ((b, s, hp, hd), (b, s, kvs, hd), (b, s, kvs, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_matches_plain(case, dtype, cuda_device, rng):
+    shape = FLASH_CASES[case]
+    hp, causal = shape[2], shape[5]
+    q, k, v = _flash_inputs(shape, dtype, cuda_device, rng)
+    before = flash_ops.flash_attention.launches
+    out, lse = flash_ops.flash_attention(q, k, v, causal)
+    ke, ve = expand_kv(k, hp), expand_kv(v, hp)
+    want = flash_attention_ref(q, ke, ve, causal)
+    want_lse = flash_attention_lse_ref(q, ke, causal)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        want32 = flash_attention_ref(q.float(), ke.float(), ve.float(), causal)
+        torch.testing.assert_close(out.float(), want32.to(dtype).float(), **FLASH_BF16_P32_TOL)
+
+
+@pytest.mark.parametrize("case", ["gqa-2x128x16on8x128", "ragged-1x200x4on2x64",
+                                  "ragged-full-1x77x2x32"])
+def test_flash_gradient_matches_autograd_of_plain(case, cuda_device, rng):
+    shape = FLASH_CASES[case]
+    hp, causal = shape[2], shape[5]
+    q, k, v = _flash_inputs(shape, torch.float32, cuda_device, rng, grad=True)
+    dout = t(rng.standard_normal(tuple(q.shape), dtype=np.float32)).to(cuda_device)
+    got = torch.autograd.grad((flash_ops.attention(q, k, v, causal) * dout).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (flash_attention_ref(q, expand_kv(k, hp), expand_kv(v, hp), causal) * dout).sum(),
+        (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    q = torch.zeros((1, 8, 4, 24), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 24"):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 3, 16), device=cuda_device)
+    kv = torch.zeros((1, 8, 2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="do not divide"):
+        flash_ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q, q.transpose(1, 2), q)
+
+
+def test_bf16_matmul_with_float32_output_has_the_widened_gradient(cuda_device, rng):
+    x = t(rng.standard_normal((64, 48), dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    w = t(rng.standard_normal((48, 3, 8), dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    g = t(rng.standard_normal((64, 3, 8), dtype=np.float32)).to(cuda_device)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = layers.matmul(xr, wr, torch.float32)
+    assert y.dtype == torch.float32
+    dx, dw = torch.autograd.grad((y * g).sum(), (xr, wr))
+    xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    want = torch.autograd.grad(((xf @ wf.reshape(48, -1)).reshape(64, 3, 8) * g).sum(),
+                               (xf, wf))
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    # the float32 gradients rounded to bf16, as the reference's transpose
+    # rounds them: at most one bf16 ulp apart (float32 sums in another order)
+    for got, w_ in zip((dx, dw), want):
+        torch.testing.assert_close(got.float(), w_.to(torch.bfloat16).float(),
+                                   atol=1e-6, rtol=2.0 ** -7)
+
+
+# (accesses, num_superpages, pages_per_sp, monitored rows): test_kernels.py's
+# two-stage cases, then the simulator's interval shape
+TWO_STAGE_CASES = {"100a": (100, 16, 8, 4), "517a": (517, 8, 32, 2),
+                   "1000a": (1000, 32, 16, 8), "zero_access": (0, 16, 8, 4),
+                   "single_row": (129, 8, 8, 1), "single_sp": (64, 1, 4, 1),
+                   "main_path": (260_000, 54, 512, 100)}
+
+
+@pytest.mark.parametrize("shape", list(TWO_STAGE_CASES))
+def test_two_stage_kernel_matches_plain(shape, cuda_device, rng):
+    a, nsp, pages, n = TWO_STAGE_CASES[shape]
+    sp, pg, wr, mon = _counter_inputs(rng, a, nsp, pages, n)
+    w = rng.integers(0, 1 << 32, a, dtype=np.uint64).astype(np.uint32)  # wraps mod 2^32
+    args = [t(x).to(cuda_device) for x in (sp, pg, w, mon)]
+    before = ops.two_stage_count.launches
+    got = ops.two_stage_count(*args, nsp, pages)
+    via = ops.count_accesses(*args, nsp, pages)
+    want = two_stage_count_ref(args[0], args[1], args[2], nsp, args[3], pages)
+    torch.cuda.synchronize()
+    assert ops.two_stage_count.launches == before + 2  # zero accesses launch too
+    assert all(torch.equal(g, x) and torch.equal(v_, x) for g, v_, x in zip(got, via, want))
+
+
+def test_train_steps_on_gpu_equal_cpu_port(cuda_device):
+    """Three float32 AdamW steps of the reduced config with chunked attention
+    (the flash kernel on the card), TF32 off: losses within 1e-5; parameters
+    within 1e-4, since Adam's m / sqrt(v) turns the last-bit differences of a
+    near-zero gradient into a visible fraction of the step (lr 3e-3)."""
+    cfg = dataclasses.replace(configs.get_reduced_config("qwen3-0.6b"),
+                              dtype="float32", param_dtype="float32")
+    tree = interop.numpy_params(cfg, 3)
+    tcfg = TrainStepConfig(remat="full", attn_impl="chunked", adamw=AdamWConfig(lr=3e-3))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = interop.params_from_numpy(cfg, tree, dev)
+        state = {"params": params, "opt": adamw_init(params)}
+        step = build_train_step(cfg, tcfg)
+        data = SyntheticLM(cfg.vocab_size, 40, 4, seed=2)
+        flash_ops.flash_attention.launches = 0
+        losses = []
+        for _ in range(3):
+            state, m = step(state, data.next_batch())
+            losses.append(float(m["loss"]))
+        if str(dev) != "cpu":  # forward, then the recompute of remat "full"
+            assert flash_ops.flash_attention.launches == 3 * 2 * cfg.num_layers
+        runs[str(dev)] = (losses, [x.cpu() for x in tree_leaves(state["params"])])
+    (cl, cp), (gl, gp) = runs["cpu"], runs[str(cuda_device)]
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+def test_train_main_on_gpu(cuda_device, tmp_path):
+    flash_ops.flash_attention.launches = 0
+    res = train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "4", "--batch", "2",
+                      "--seq", "64", "--attn", "chunked", "--ckpt-dir", str(tmp_path)])
+    assert res["device"].type == "cuda" and len(res["history"]) == 4
+    assert flash_ops.flash_attention.launches == 4 * res["cfg"].num_layers
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    assert model.param_shapes(res["cfg"])["embed"]["tok"] == tuple(
+        res["state"]["params"]["embed"]["tok"].shape)
