@@ -6,7 +6,7 @@
 Phases, each printed as a JSON record on its own line:
 
 1. device: the card's name, the device count and its power limit;
-2. build: the five CUDA kernels compiled from ``src/repro_torch/csrc`` (one
+2. build: the five CUDA sources compiled from ``src/repro_torch/csrc`` (one
    nvcc per source, in parallel);
 3. counter: the fused observe counter kernel against its plain version,
    bitwise, at the simulator's shapes and on edge cases;
@@ -19,7 +19,9 @@ Phases, each printed as a JSON record on its own line:
 6. attention: the paged decode attention kernel against its plain version in
    float32 and bfloat16, in the Pallas kernel's form at
    ``tests/test_kernels.py``'s shapes and in the serving form (fresh lane +
-   block mass) at the serving shapes;
+   block mass) at the serving shapes, at and past the KV split boundaries,
+   with 1 and 16 blocks per split and with capacity and hot rows mixed
+   within a split;
 7. gather: the block-migration copy kernel against its plain version,
    bitwise, including all-skip and single-lane plans and bfloat16;
 8. serve: ``repro_torch.launch.serve`` at qwen3-0.6b's full width (28
@@ -31,8 +33,11 @@ Phases, each printed as a JSON record on its own line:
    and evicted counts exact);
 9. flash: the flash attention kernel (output and log-sum-exp) against its
    plain version in float32 and bfloat16 (bf16 also against the plain
-   version with P kept in float32), at ``tests/test_kernels.py``'s shapes, a GQA and a ragged case and the full-width training shape, and
-   its autograd Function's gradient against autograd of the plain version;
+   version with P kept in float32), at ``tests/test_kernels.py``'s shapes,
+   GQA (4-on-1 at head dims 16 and 32), ragged lengths (S 1 to 1000, ending
+   inside an MMA fragment), non-causal cases and the full-width training
+   shape, and its autograd Function's gradient against autograd of the
+   plain version;
 10. count: the two-stage counter behind ``count_accesses`` against its plain
     version, bitwise, at ``tests/test_kernels.py``'s six shapes, after
     ``count_accesses`` is driven over the mcf trace's intervals;
@@ -448,10 +453,11 @@ SERVE_ATTN = dict(b=8, hp=16, kvs=8, hd=128, block=16, nblk=20, hot=10)
 
 
 def attention_inputs(torch, np, rng, dtype, b, hp, kvs, hd, block, nblk, hot,
-                     fresh: bool, dev):
+                     fresh: bool, dev, mix: bool = False):
     """(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new): a capacity pool of
     b * nblk blocks, `hot` hot rows, and vidx redirecting some blocks (serving
-    form: home blocks, a few resident) or random pool rows (Pallas form)."""
+    form: home blocks, a few resident; `mix`: every odd block hot, so each
+    KV split reads both pools) or random pool rows (Pallas form)."""
     nb = b * nblk
 
     def rand(*shape):
@@ -464,6 +470,9 @@ def attention_inputs(torch, np, rng, dtype, b, hp, kvs, hd, block, nblk, hot,
         vidx = np.arange(nb, dtype=np.int32).reshape(b, nblk)
         flat = rng.choice(nb, min(hot, nb), replace=False)
         vidx.reshape(-1)[flat] = nb + np.arange(len(flat), dtype=np.int32)
+        if mix:
+            odd = vidx[:, 1::2]
+            vidx[:, 1::2] = nb + np.arange(odd.size, dtype=np.int32).reshape(odd.shape) % hot
         k_new, v_new = rand(b, kvs, hd), rand(b, kvs, hd)
     else:
         vidx = rng.integers(0, nb + hot, (b, nblk)).astype(np.int32)
@@ -490,6 +499,16 @@ def check_attention(torch, np) -> dict:
                   for b, hp, kvs, hd, blk, nblk in PALLAS_ATTN_SHAPES]
         full = SERVE_ATTN["nblk"] * SERVE_ATTN["block"]
         shapes += [(f"serve-len{n}", True, SERVE_ATTN, n) for n in (0, 1, 150, full - 1)]
+        # the KV split (64 positions, 4 blocks of 16): at a split boundary and
+        # one past it, a partial last split, 1 and 16 blocks per split, both
+        # pools within one split
+        shapes += [(f"split-len{n}", True, SERVE_ATTN, n) for n in (64, 65, 128)]
+        shapes += [
+            ("split-nblk21", True, {**SERVE_ATTN, "nblk": 21}, 21 * SERVE_ATTN["block"] - 1),
+            ("block64", True, dict(b=4, hp=16, kvs=8, hd=128, block=64, nblk=5, hot=4), 250),
+            ("block4", True, dict(b=4, hp=16, kvs=8, hd=128, block=4, nblk=40, hot=8), 150),
+            ("mixed-len319", True, {**SERVE_ATTN, "mix": True}, full - 1),
+        ]
         for name, fresh, shape, length in shapes:
             args = attention_inputs(torch, np, rng, dtype, **shape, fresh=fresh, dev=dev)
             ker = rainbow_attention(*args[:6], length, *args[6:], with_mass=fresh)
@@ -709,7 +728,7 @@ def check_serve(torch) -> dict:
     by = {}
     for key, ms, c in events:
         name = ("rainbow_attention" if "rainbow_attention_kernel" in key
-                or "mass_reduce_kernel" in key else "block_gather"
+                or "rainbow_attention_combine_kernel" in key else "block_gather"
                 if "block_gather_kernel" in key else "gemm"
                 if any(w in key.lower() for w in ("gemm", "gemv", "nvjet")) else "other")
         by[name] = by.get(name, 0.0) + ms
@@ -815,6 +834,15 @@ FLASH_SHAPES = {
     "gqa-2x256x16on8x128": (2, 256, 16, 8, 128, True),
     "ragged-2x200x16on8x128": (2, 200, 16, 8, 128, True),
     "hd16-2x40x4on2x16": (2, 40, 4, 2, 16, True),
+    "s1-1x1x4on2x128": (1, 1, 4, 2, 128, True),
+    "s17-2x17x4on2x128": (2, 17, 4, 2, 128, True),
+    "s63-1x63x4on2x64": (1, 63, 4, 2, 64, True),
+    "s64-1x64x4on2x128": (1, 64, 4, 2, 128, True),
+    "s65-1x65x4on2x128": (1, 65, 4, 2, 128, True),
+    "s1000-1x1000x4on2x128": (1, 1000, 4, 2, 128, True),
+    "gqa4-hd16-2x96x4on1x16": (2, 96, 4, 1, 16, True),
+    "gqa4-hd32-2x96x4on1x32": (2, 96, 4, 1, 32, True),
+    "full-1x200x4on2x64": (1, 200, 4, 2, 64, False),
     "train-8x1024x16on8x128": (8, 1024, 16, 8, 128, True),
 }
 
@@ -1095,6 +1123,7 @@ def check_train(torch, np) -> dict:
     for key, ms, c in events:
         low = key.lower()
         kind = ("flash_attention" if "flash_attention_kernel" in key
+                or "flash_attention_mma_kernel" in key
                 else "gemm_fp32" if any(w in low for w in ("f32f32", "sgemm"))
                 else "gemm" if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass"))
                 else "other")
@@ -1399,7 +1428,7 @@ def main() -> int:
             "library_ms": attn["library_ms"], "event_ms": attn["event_ms"],
             "ms_trace": attn["trace"], "timing": TIMING,
             "library": "F.scaled_dot_product_attention on the gathered, head-expanded K/V",
-            "shape": attn["timed_shape"],
+            "shape": attn["timed_shape"], "redesigned": 16, "ms_before": 0.0557,
         },
         {
             "name": "block_gather", "route": "cuda",
@@ -1426,7 +1455,7 @@ def main() -> int:
             "library_ms": flash["library_ms"], "event_ms": flash["event_ms"],
             "ms_trace": flash["trace"], "timing": TIMING,
             "library": "F.scaled_dot_product_attention(is_causal=True), K/V expanded",
-            "shape": flash["timed_shape"],
+            "shape": flash["timed_shape"], "redesigned": 16, "ms_before": 2.62,
         },
         {
             "name": "two_stage_count", "route": "cuda",

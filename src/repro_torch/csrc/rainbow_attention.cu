@@ -14,33 +14,41 @@
 // readable and lies outside every block.
 //
 //   s   = (q . k_p) / sqrt(hd)             float32 products and sums
-//   out = sum_p softmax(s)_p * v_p          online softmax in float32
+//   out = sum_p softmax(s)_p * v_p          float32 sums
 //   mass_h[b, h, i] = sum_{t} softmax(s)_{i*block+t}   (optional)
 //   mass[b, i]      = sum_h mass_h[b, h, i]            (heads in order 0..HP-1)
 //
 // In bf16 the probabilities are rounded to bf16 before the PV product (as the
 // reference rounds them, rainbow_decode.py:63) and the sum stays float32.
-// The per-block mass is formed without atomics: each block's sum of
-// exp(s - m_i) and its running max m_i are kept, rescaled by
-// exp(m_i - m) / l once the final (m, l) are known, and a second kernel
-// reduces the heads in a fixed order, so the mass -- which the controller
-// quantizes (kvcache.quantize_mass) -- is the same from run to run.
 //
-// Bound on the H100: bytes.  A call must read the readable K/V rows once
-// (at the serving shapes, B=8, KVS=8, hd=128, ~300 positions: about 10 MB in
-// bf16, 3 us at 3.35 TB/s); the arithmetic is 4 flops per K/V element.
-// Design (a simple, exact first form): one CTA per (kv head, row b), so each
-// K/V row is loaded once for all the query heads that share it (GQA).  A
-// loop over tiles of whole KV blocks (up to kTile positions) replaces the
-// TPU's sequential block grid: all threads first copy the tile's K and V
-// rows into shared memory as float32 (16-byte loads where the layout
-// allows, several in flight per thread), then one thread per (head,
-// position) forms each q.k dot, one warp per head updates (m, l) and the
-// tile's per-block sums, and every thread owns head_dim columns of the
-// accumulator for the PV product.  Tiles wholly
-// beyond `length` are skipped: their probabilities are exactly zero in the
-// reference.  Split-KV (more CTAs than B x KVS), tensor-core and TMA forms
-// are later work.
+// Bound on the H100: bytes.  A call must read the readable K/V rows once (at
+// the serving shape, B 8, KVS 8, hd 128, ~320 positions: 10.6 MB in bf16,
+// 3.2 us at 3.35 TB/s); the arithmetic is 4 flops per K/V element.  What
+// limits a decode call is latency: too few CTAs, loads not in flight while
+// the CTA computes, and serial chains of dependent loads.  So the walk over
+// the KV blocks is split across CTAs, two launches per call:
+//
+// 1. `rainbow_attention_kernel`, grid (KVS, B, nsplit): each split covers as
+//    many whole KV blocks as fit in kSplitPos = 64 positions (at least one),
+//    so nsplit depends on nblk and block only, never on length (5 splits, 320
+//    CTAs at the serving shape); the last split also takes the fresh lane.
+//    One CTA per (kv head, row, split) loads each K/V row once for all the
+//    query heads that share it (GQA): it resolves its rows' addresses from
+//    vidx, then starts every row's cp.async at once (16 bytes a thread; K
+//    and V as two groups, so the scores start while V is still in flight),
+//    keeping K and V in their own dtype in shared memory.  The lanes that
+//    share a row each hold their 16-byte chunks of every head's q and of
+//    every head's PV sum in registers; one warp per head forms the split's
+//    max m, normaliser l = sum exp(s - m) and each block's sum of
+//    exp(s - m) in position order.  It writes (acc, m, l) per (row, head,
+//    split); a split with no readable position writes m = -inf, l = 0.
+// 2. `rainbow_attention_combine_kernel`, grid (HP + 1, B): CTA (h, b)
+//    merges head h's splits in split order (a split with l = 0 adds exactly
+//    0) into out; CTA (HP, b) forms each block's mass as
+//    blk_sum * exp(m_split - m) / l, summed over the heads 0..HP-1 in order.
+//
+// No atomics anywhere: every sum has a fixed order, so the mass -- which the
+// controller quantizes (kvcache.quantize_mass) -- is the same from run to run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -49,11 +57,13 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;   // query heads per kv head
+constexpr int kMaxGroup = 8;     // query heads per kv head
 constexpr int kMaxHd = 2 * kThreads;
-constexpr int kTile = 64;      // positions per tile
-constexpr int kMaxBlock = kTile;  // tokens per KV block
-constexpr int kBatch = 4;         // loads in flight per thread and row kind
+constexpr int kSplitPos = 64;    // positions per split at most (whole blocks)
+constexpr int kMaxBlock = kSplitPos;  // tokens per KV block
+constexpr int kMaxPos = kSplitPos + 1;  // positions of a split, the fresh lane included
+constexpr int kUnroll = 4;       // positions per lane group in flight in the dot and PV passes
+constexpr int kMassTerms = 2048;  // (block, head) mass terms staged per pass, at least
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -89,269 +99,464 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// 16 bytes global -> shared without passing through registers.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>  // wait until at most N committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Elements per shared K/V row: head_dim rounded up to 16 bytes, plus 16
+// bytes so that neighbouring rows start in other banks.
 template <typename T>
+__host__ __device__ __forceinline__ int row_pitch(int hd) {
+  constexpr int E = 16 / sizeof(T);
+  return ((hd + E - 1) / E + 1) * E;
+}
+
+// Lanes that share one K/V row in the dot and PV passes: the row's 16-byte
+// chunks rounded up to a power of two, at most a warp (a lane then takes
+// up to kMaxHd / E / 32 chunks: two in float32 at head_dim 256, else one).
+template <typename T>
+__host__ __device__ __forceinline__ int lanes_per_row(int hd) {
+  const int nchunk = (hd + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T));
+  int lpr = 1;
+  while (lpr < nchunk && lpr < 32) lpr <<= 1;
+  return lpr;
+}
+
+// The partial record of (row b, query head h, split s) in `part`:
+// acc[hd], then m, then l; records [B][HP][nsplit] of hd + 2 floats.
+// G is the query-head group rounded up to a power of two (registers).
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) rainbow_attention_kernel(
     const T* __restrict__ q,                                   // [B, HP, hd]
     const T* __restrict__ cap_k, const T* __restrict__ cap_v,  // [NB, block, KVS, hd]
     const T* __restrict__ hot_k, const T* __restrict__ hot_v,  // [HOT, block, KVS, hd]
     const int* __restrict__ vidx,                              // [B, nblk]
     const T* __restrict__ k_new, const T* __restrict__ v_new,  // [B, KVS, hd] or null
-    T* __restrict__ out,                                       // [B, HP, hd]
-    float* __restrict__ mass_h,                                // [B, HP, nblk] or null
-    float* __restrict__ blk_m,                                 // [B, HP, nblk] or null
+    float* __restrict__ part,                                  // partial records
+    float* __restrict__ blk_sum,                               // [B, HP, nblk] or null
     int length, int nblk, int nb_cap, int block, int kvs, int hp, int hd,
-    float sqrt_hd, int vec16) {
+    int blocks_per_split, float sqrt_hd, int vec16) {
+  constexpr int E = 16 / sizeof(T);            // elements per 16 bytes
+  constexpr int kCpl = kMaxHd / E / 32;        // 16-byte chunks per lane at most
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int nsplit = gridDim.z;
   const int group = hp / kvs;
   const int h0 = kvh * group;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long pos_stride = (long long)kvs * hd;  // elements between positions
+  const int rec = hd + 2;
+  const long long head_step = (long long)nsplit * rec;  // between heads' records
+  float* part0 = part + ((long long)(b * hp + h0) * nsplit + split) * rec;
+  const int j0 = split * blocks_per_split;  // first KV block of the split
+  // block positions read, then the fresh lane (in the last split)
+  const int nread = max(0, min(length - j0 * block, min(blocks_per_split, nblk - j0) * block));
+  const bool fresh = k_new != nullptr && split == nsplit - 1;
+  const int npos = nread + (fresh ? 1 : 0);
+  if (npos == 0) {  // every position masked: the split adds exactly nothing
+    if (tid < group) {
+      part0[tid * head_step + hd] = -INFINITY;
+      part0[tid * head_step + hd + 1] = 0.0f;
+    }
+    return;
+  }
+
+  const long long pos_stride = (long long)kvs * hd;     // elements between positions
   const long long row = (long long)block * pos_stride;  // elements per KV block
-  const int per_tile = kTile / block;  // whole KV blocks per tile (>= 1)
+  const int nchunk = (hd + E - 1) / E;                  // 16-byte chunks per row
+  const int pitch = row_pitch<T>(hd);
+  // lanes [slot * lpr, slot * lpr + lpr) of the block share positions
+  // slot, slot + rstep, ...; lane chunk c = cl + k * lpr of each
+  const int lpr = lanes_per_row<T>(hd);
+  const int rstep = kThreads / lpr;
+  const int slot = tid / lpr;
+  const int cl = tid % lpr;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [kMaxPos][pitch]
+  T* v_s = k_s + kMaxPos * pitch;           // [kMaxPos][pitch]
+  float* red = reinterpret_cast<float*>(smem_raw);  // after PV: [rstep][group][nchunk * E]
+  __shared__ float p_s[kMaxGroup][kMaxPos];  // scores, then probabilities
+  __shared__ const T* krow_s[kMaxPos];       // where each position's K/V rows start
+  __shared__ const T* vrow_s[kMaxPos];
 
-  extern __shared__ float kv_s[];  // K tile [kTile][hd + 1], then V tile [kTile][hd]
-  const int kstride = hd + 1;
-  float* k_s = kv_s;
-  float* v_s = kv_s + kTile * kstride;
-  __shared__ float q_s[kMaxGroup][kMaxHd];
-  __shared__ float p_s[kMaxGroup][kTile];  // scores, then exp(s - m)
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], alpha_s[kMaxGroup];
-  __shared__ const T* krow_s[kTile];  // where each position's K/V rows start
-  __shared__ const T* vrow_s[kTile];
-
-  const T* q_row = q + ((long long)b * hp + h0) * hd;
-  for (int i = tid; i < group * hd; i += kThreads) q_s[i / hd][i % hd] = load(q_row + i);
-  if (tid < group) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-  float acc[kMaxGroup][2];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g][0] = acc[g][1] = 0.0f;
-
-  const int hist_tiles = (nblk + per_tile - 1) / per_tile;
-  const int n_tiles = hist_tiles + (k_new != nullptr ? 1 : 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const bool fresh = tile == hist_tiles;
-    const int j0 = tile * per_tile;  // first KV block of the tile
-    int cnt;                         // readable positions of the tile
-    if (fresh) {
-      cnt = 1;
-    } else {
-      const int blocks = min(per_tile, nblk - j0);
-      cnt = min(length - j0 * block, blocks * block);
-      if (cnt <= 0) continue;  // every position masked: probability exactly 0
-    }
-    __syncthreads();  // the previous tile's readers are done with the buffers
-    if (tid < cnt) {
-      const T* kr;
-      const T* vr;
-      if (fresh) {
-        kr = k_new + (long long)b * pos_stride + (long long)kvh * hd;
-        vr = v_new + (long long)b * pos_stride + (long long)kvh * hd;
+  if (tid < npos) {
+    if (tid < nread) {
+      const int jb = tid / block;
+      const int t = tid - jb * block;
+      const int v = vidx[(long long)b * nblk + j0 + jb];
+      const long long off = (long long)t * pos_stride + (long long)kvh * hd;
+      if (v < nb_cap) {
+        krow_s[tid] = cap_k + (long long)v * row + off;
+        vrow_s[tid] = cap_v + (long long)v * row + off;
       } else {
-        const int j = j0 + tid / block;
-        const int t = tid - (tid / block) * block;
-        const int v = vidx[(long long)b * nblk + j];
-        const long long off = (long long)t * pos_stride + (long long)kvh * hd;
-        if (v < nb_cap) {
-          kr = cap_k + (long long)v * row + off;
-          vr = cap_v + (long long)v * row + off;
-        } else {
-          kr = hot_k + (long long)(v - nb_cap) * row + off;
-          vr = hot_v + (long long)(v - nb_cap) * row + off;
-        }
-      }
-      krow_s[tid] = kr;
-      vrow_s[tid] = vr;
-    }
-    __syncthreads();
-
-    // the tile's K and V rows -> shared memory, float32; each thread issues
-    // kBatch loads per row kind before it stores any, so they overlap
-    if (vec16) {
-      const int per = 16 / (int)sizeof(T);  // elements per 16-byte load
-      const int chunks = hd / per;
-      const int total = cnt * chunks;
-      for (int i0 = tid; i0 < total; i0 += kThreads * kBatch) {
-        uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < total) {
-            const int p = i / chunks;
-            const int c = (i - p * chunks) * per;
-            kr[u] = *reinterpret_cast<const uint4*>(krow_s[p] + c);
-            vr[u] = *reinterpret_cast<const uint4*>(vrow_s[p] + c);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < total) {
-            const int p = i / chunks;
-            const int c = (i - p * chunks) * per;
-            unpack16(q, kr[u], k_s + p * kstride + c);
-            unpack16(q, vr[u], v_s + p * hd + c);
-          }
-        }
+        krow_s[tid] = hot_k + (long long)(v - nb_cap) * row + off;
+        vrow_s[tid] = hot_v + (long long)(v - nb_cap) * row + off;
       }
     } else {
-      const int total = cnt * hd;
-      for (int i0 = tid; i0 < total; i0 += kThreads * kBatch) {
-        float kr[kBatch], vr[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < total) {
-            const int p = i / hd;
-            kr[u] = load(krow_s[p] + (i - p * hd));
-            vr[u] = load(vrow_s[p] + (i - p * hd));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int i = i0 + u * kThreads;
-          if (i < total) {
-            const int p = i / hd;
-            k_s[p * kstride + (i - p * hd)] = kr[u];
-            v_s[i] = vr[u];
-          }
-        }
-      }
+      krow_s[tid] = k_new + (long long)b * pos_stride + (long long)kvh * hd;
+      vrow_s[tid] = v_new + (long long)b * pos_stride + (long long)kvh * hd;
     }
-    __syncthreads();
-
-    // scores: one thread per (head, position) dot, d in order; K rows are
-    // padded by one float so a warp's 32 positions hit 32 banks
-    for (int i = tid; i < group * cnt; i += kThreads) {
-      const int g = i / cnt;
-      const int p = i - g * cnt;
-      const float* kp = k_s + p * kstride;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < hd; ++d) dot += q_s[g][d] * kp[d];
-      p_s[g][p] = dot / sqrt_hd;
-    }
-    __syncthreads();
-
-    // online-softmax update and the tile's per-block sums, one warp per head
-    for (int g = warp; g < group; g += kWarps) {
-      float mx = -INFINITY;
-      for (int p = lane; p < cnt; p += 32) mx = fmaxf(mx, p_s[g][p]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int p = lane; p < cnt; p += 32) {
-        const float e = expf(p_s[g][p] - m_new);
-        p_s[g][p] = e;
-        sum += e;
+  }
+  // this lane's part of each head's q, in registers (zero beyond hd)
+  float qr[G][kCpl][E];
+  const T* q_row = q + ((long long)b * hp + h0) * hd;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < kCpl; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = (cl + k * lpr) * E + e;
+        qr[g][k][e] = g < group && d < hd ? load(q_row + g * hd + d) : 0.0f;
       }
-      sum = warp_sum(sum);
-      if (mass_h != nullptr && !fresh) {
-        __syncwarp();
-        for (int jb = lane; jb * block < cnt; jb += 32) {
-          float bs = 0.0f;  // positions of the block in order
-          for (int t = jb * block; t < min(cnt, (jb + 1) * block); ++t) bs += p_s[g][t];
-          const long long at = ((long long)b * hp + h0 + g) * nblk + j0 + jb;
-          mass_h[at] = bs;
-          blk_m[at] = m_new;
+  __syncthreads();
+
+  // every K row's copy, then every V row's, all in flight at once
+  if (vec16) {  // hd == nchunk * E and every row start is 16-byte aligned
+    const int total = npos * nchunk;
+    const int dp = kThreads / nchunk;
+    const int dc = kThreads - dp * nchunk;
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv) {
+      T* dst = kv == 0 ? k_s : v_s;
+      const T* const* src = kv == 0 ? krow_s : vrow_s;
+      int p = tid / nchunk;
+      int c = tid - p * nchunk;
+      for (int i = tid; i < total; i += kThreads) {
+        cp_async16(dst + p * pitch + c * E, src[p] + c * E);
+        p += dp;
+        c += dc;
+        if (c >= nchunk) {
+          c -= nchunk;
+          ++p;
         }
       }
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
+      cp_async_commit();
     }
-    __syncthreads();
-
-    // PV: thread tid owns head_dim columns tid and tid + kThreads
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int d = tid + c * kThreads;
-      if (d >= hd) break;
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < group) acc[g][c] *= alpha_s[g];
-#pragma unroll 8
-      for (int p = 0; p < cnt; ++p) {
-        const float vd = v_s[p * hd + d];
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g)
-          if (g < group) acc[g][c] += as_value(q, p_s[g][p]) * vd;
+    cp_async_wait<1>();  // K has landed
+  } else {
+    const int w = nchunk * E;
+    for (int i = tid; i < npos * w; i += kThreads) {
+      const int p = i / w;
+      const int d = i - p * w;
+      if (d < hd) {
+        k_s[p * pitch + d] = krow_s[p][d];
+        v_s[p * pitch + d] = vrow_s[p][d];
+      } else {  // the last chunk's tail
+        store(k_s + p * pitch + d, 0.0f);
+        store(v_s + p * pitch + d, 0.0f);
       }
     }
   }
-  __syncthreads();  // the last tile's (m, l) are final
+  __syncthreads();
 
+  // scores: lpr lanes per position, each over its chunks, for every head,
+  // kUnroll positions per lane group at once; the trip count is uniform
+  // across the block for the shuffles
+  for (int p0 = 0; p0 < npos; p0 += kUnroll * rstep) {
+    float dot[kUnroll][G];
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int d = tid + c * kThreads;
-    if (d >= hd) break;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * rstep + slot;
+      uint4 kc[kCpl];
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < group)
-        store(out + ((long long)b * hp + h0 + g) * hd + d, acc[g][c] / l_s[g]);
-  }
-  if (mass_h != nullptr) {
-    for (int i = tid; i < group * nblk; i += kThreads) {
-      const int g = i / nblk;
-      const int blk = i % nblk;
-      const long long at = ((long long)b * hp + h0 + g) * nblk + blk;
-      mass_h[at] = blk * block < length
-                       ? mass_h[at] * expf(blk_m[at] - m_s[g]) / l_s[g]
-                       : 0.0f;
+      for (int k = 0; k < kCpl; ++k) {
+        const int c = cl + k * lpr;
+        kc[k] = p < npos && c < nchunk
+                    ? *reinterpret_cast<const uint4*>(k_s + p * pitch + c * E)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) dot[u][g] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kCpl; ++k) {
+        float kf[E];
+        unpack16(q, kc[k], kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot[u][g] += qr[g][k][e] * kf[e];
+      }
     }
+    for (int o = lpr >> 1; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int g = 0; g < G; ++g) dot[u][g] += __shfl_xor_sync(0xffffffffu, dot[u][g], o);
+    if (cl == 0) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * rstep + slot;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (p < npos && g < group) p_s[g][p] = dot[u][g] / sqrt_hd;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the split's softmax statistics and per-block sums, one warp per head
+  for (int g = warp; g < group; g += kWarps) {
+    float mx = -INFINITY;
+    for (int p = lane; p < npos; p += 32) mx = fmaxf(mx, p_s[g][p]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int p = lane; p < npos; p += 32) {
+      const float e = expf(p_s[g][p] - mx);
+      p_s[g][p] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      part0[g * head_step + hd] = mx;
+      part0[g * head_step + hd + 1] = sum;
+    }
+    __syncwarp();
+    if (blk_sum != nullptr) {
+      for (int jb = lane; jb * block < nread; jb += 32) {
+        float bs = 0.0f;  // positions of the block in order
+        for (int t = jb * block; t < min(nread, (jb + 1) * block); ++t) bs += p_s[g][t];
+        blk_sum[((long long)b * hp + h0 + g) * nblk + j0 + jb] = bs;
+      }
+      __syncwarp();
+    }
+    for (int p = lane; p < npos; p += 32) p_s[g][p] = as_value(q, p_s[g][p]);
+  }
+  if (vec16) cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  // PV: each lane accumulates its chunks of every head over its positions
+  float acc[G][kCpl][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < kCpl; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][k][e] = 0.0f;
+  for (int p0 = slot; p0 < npos; p0 += kUnroll * rstep) {
+    float pg[kUnroll][G];
+    uint4 vc[kUnroll][kCpl];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * rstep;
+#pragma unroll
+      for (int g = 0; g < G; ++g) pg[u][g] = p < npos && g < group ? p_s[g][p] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kCpl; ++k) {
+        const int c = cl + k * lpr;
+        vc[u][k] = p < npos && c < nchunk
+                       ? *reinterpret_cast<const uint4*>(v_s + p * pitch + c * E)
+                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int k = 0; k < kCpl; ++k) {
+        float vf[E];
+        unpack16(q, vc[u][k], vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][k][e] += pg[u][g] * vf[e];
+      }
+  }
+  __syncthreads();  // K and V are read: their memory takes the slots' sums
+
+  const int w = nchunk * E;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < kCpl; ++k) {
+      const int c = cl + k * lpr;
+      if (g < group && c < nchunk)
+#pragma unroll
+        for (int e = 0; e < E; ++e) red[(slot * group + g) * w + c * E + e] = acc[g][k][e];
+    }
+  __syncthreads();
+  for (int i = tid; i < group * hd; i += kThreads) {
+    const int g = i / hd;
+    const int d = i - g * hd;
+    float s = 0.0f;  // the slots in order
+    for (int r = 0; r < rstep; ++r) s += red[(r * group + g) * w + d];
+    part0[g * head_step + d] = s;
   }
 }
 
-// mass[b, i] = sum over heads h = 0..HP-1, in that order, of mass_h[b, h, i].
-__global__ void mass_reduce_kernel(const float* __restrict__ mass_h,
-                                   float* __restrict__ mass, int batch, int hp,
-                                   int nblk) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= batch * nblk) return;
-  const int b = i / nblk;
-  const int blk = i % nblk;
-  float s = 0.0f;
-  for (int h = 0; h < hp; ++h) s += mass_h[((long long)b * hp + h) * nblk + blk];
-  mass[i] = s;
+// A head's final max M and normaliser L from its splits' maxima m and sums
+// l, in split order; a split with l = 0 adds exactly 0 (no -inf - -inf).
+__device__ __forceinline__ void head_stats(const float* m, const float* l, int nsplit,
+                                           float& m_out, float& l_out) {
+  float mx = -INFINITY;
+  for (int s = 0; s < nsplit; ++s)
+    if (l[s] > 0.0f) mx = fmaxf(mx, m[s]);
+  float sum = 0.0f;
+  for (int s = 0; s < nsplit; ++s)
+    if (l[s] > 0.0f) sum += l[s] * expf(m[s] - mx);
+  m_out = mx;
+  l_out = sum;
 }
 
+// Shared floats of the combine kernel: the mass CTA's per-head M and L, and
+// a stage for the split statistics or the mass terms.
+__host__ __device__ __forceinline__ int combine_stage(int hp, int nsplit) {
+  int n = kMassTerms;
+  if (2 * nsplit > n) n = 2 * nsplit;
+  return hp > n ? hp : n;
+}
+
+// Merges the splits: CTA (h, b) for h < HP writes out[b, h]; CTA (HP, b)
+// forms row b's block mass, summed over heads 0..HP-1 in order.  Both stage
+// the split statistics in shared memory and take each head's M and L from
+// head_stats, so they agree to the bit.
 template <typename T>
+__global__ void __launch_bounds__(kThreads) rainbow_attention_combine_kernel(
+    const float* __restrict__ part, const float* __restrict__ blk_sum,
+    T* __restrict__ out,                                       // [B, HP, hd]
+    float* __restrict__ mass,                                  // [B, nblk] or null
+    int length, int nblk, int block, int hp, int hd, int nsplit,
+    int blocks_per_split) {
+  extern __shared__ float cs[];
+  const int b = blockIdx.y;
+  const int rec = hd + 2;
+  const float* rec_b = part + (long long)b * hp * nsplit * rec;  // row b's records
+  if (blockIdx.x < hp) {
+    const int h = blockIdx.x;
+    const float* rec_h = rec_b + (long long)h * nsplit * rec;
+    float* w_s = cs;            // [nsplit]: m, then exp(m - M), 0 for empty splits
+    float* l_s = cs + nsplit;   // [nsplit]: l, then L at [nsplit]
+    for (int s = threadIdx.x; s < nsplit; s += kThreads) {
+      w_s[s] = rec_h[(long long)s * rec + hd];
+      l_s[s] = rec_h[(long long)s * rec + hd + 1];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float mx, sum;
+      head_stats(w_s, l_s, nsplit, mx, sum);
+      for (int s = 0; s < nsplit; ++s) w_s[s] = l_s[s] > 0.0f ? expf(w_s[s] - mx) : 0.0f;
+      l_s[nsplit] = sum;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < hd; d += kThreads) {
+      float acc = 0.0f;
+      for (int s = 0; s < nsplit; ++s)
+        if (w_s[s] > 0.0f) acc += rec_h[(long long)s * rec + d] * w_s[s];
+      store(out + ((long long)b * hp + h) * hd + d, acc / l_s[nsplit]);
+    }
+    return;
+  }
+  float* m_h = cs;            // [hp]
+  float* l_h = cs + hp;       // [hp]
+  float* stage = cs + 2 * hp;
+  const int n_stage = combine_stage(hp, nsplit);
+  const int heads_per_pass = n_stage / (2 * nsplit);
+  for (int h0 = 0; h0 < hp; h0 += heads_per_pass) {
+    const int n = min(heads_per_pass, hp - h0) * nsplit;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float* r = rec_b + ((long long)h0 * nsplit + i) * rec;
+      stage[i] = r[hd];
+      stage[n + i] = r[hd + 1];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i * nsplit < n; i += kThreads)
+      head_stats(stage + i * nsplit, stage + n + i * nsplit, nsplit, m_h[h0 + i], l_h[h0 + i]);
+    __syncthreads();
+  }
+  const int per_pass = n_stage / hp;  // blocks whose terms fit the stage
+  for (int blk0 = 0; blk0 < nblk; blk0 += per_pass) {
+    const int nb = min(per_pass, nblk - blk0);
+    for (int i = threadIdx.x; i < nb * hp; i += kThreads) {
+      const int blk = blk0 + i / hp;
+      const int h = i % hp;
+      float t = 0.0f;  // exactly 0 for blocks at or beyond length
+      if (blk * block < length) {
+        const float m_split =
+            rec_b[((long long)h * nsplit + blk / blocks_per_split) * rec + hd];
+        t = blk_sum[((long long)b * hp + h) * nblk + blk] * expf(m_split - m_h[h]) / l_h[h];
+      }
+      stage[i] = t;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb; i += kThreads) {
+      float sm = 0.0f;  // heads in order
+      for (int h = 0; h < hp; ++h) sm += stage[i * hp + h];
+      mass[(long long)b * nblk + blk0 + i] = sm;
+    }
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+template <typename T, int G>
 int launch(const void* q, const void* cap_k, const void* cap_v,
            const void* hot_k, const void* hot_v, const int* vidx,
-           const void* k_new, const void* v_new, void* out, float* mass_h,
-           float* blk_m, float* mass, int batch, int length, int nblk,
+           const void* k_new, const void* v_new, void* out, float* part,
+           float* blk_sum, float* mass, int batch, int length, int nblk,
            int nb_cap, int block, int kvs, int hp, int hd, int vec16,
            cudaStream_t stream) {
-  const int smem = kTile * (2 * hd + 1) * (int)sizeof(float);
-  static int smem_set = 48 * 1024;  // the largest opt-in set so far
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rainbow_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  const dim3 grid(kvs, batch);
-  rainbow_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  constexpr int E = 16 / sizeof(T);
+  const int nchunk = (hd + E - 1) / E;
+  const int kv_bytes = 2 * kMaxPos * row_pitch<T>(hd) * (int)sizeof(T);
+  const int red_bytes =
+      kThreads / lanes_per_row<T>(hd) * (hp / kvs) * nchunk * E * (int)sizeof(float);
+  const int smem = kv_bytes > red_bytes ? kv_bytes : red_bytes;
+  static int split_smem = 48 * 1024, combine_smem = 48 * 1024;  // opted in so far
+  cudaError_t e = allow_smem(rainbow_attention_kernel<T, G>, smem, split_smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks_per_split = kSplitPos / block > 1 ? kSplitPos / block : 1;
+  const int nsplit = (nblk + blocks_per_split - 1) / blocks_per_split;
+  rainbow_attention_kernel<T, G><<<dim3(kvs, batch, nsplit), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cap_k),
       static_cast<const T*>(cap_v), static_cast<const T*>(hot_k),
       static_cast<const T*>(hot_v), vidx, static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(out), mass_h, blk_m,
-      length, nblk, nb_cap, block, kvs, hp, hd, (float)sqrt((double)hd), vec16);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || mass == nullptr) return (int)e;
-  const int n = batch * nblk;
-  mass_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(mass_h, mass, batch,
-                                                          hp, nblk);
+      static_cast<const T*>(v_new), part, blk_sum, length, nblk, nb_cap, block, kvs,
+      hp, hd, blocks_per_split, (float)sqrt((double)hd), vec16);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int csmem = (2 * hp + combine_stage(hp, nsplit) + 1) * (int)sizeof(float);
+  e = allow_smem(rainbow_attention_combine_kernel<T>, csmem, combine_smem);
+  if (e != cudaSuccess) return (int)e;
+  rainbow_attention_combine_kernel<T>
+      <<<dim3(hp + (mass != nullptr ? 1 : 0), batch), kThreads, csmem, stream>>>(
+          part, blk_sum, static_cast<T*>(out), mass, length, nblk, block, hp, hd,
+          nsplit, blocks_per_split);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_group(const void* q, const void* cap_k, const void* cap_v,
+                 const void* hot_k, const void* hot_v, const int* vidx,
+                 const void* k_new, const void* v_new, void* out, float* part,
+                 float* blk_sum, float* mass, int batch, int length, int nblk,
+                 int nb_cap, int block, int kvs, int hp, int hd, int vec16,
+                 cudaStream_t stream) {
+  const int group = hp / kvs;
+  const decltype(&launch<T, 1>) fn = group <= 1 ? &launch<T, 1>
+                                   : group <= 2 ? &launch<T, 2>
+                                   : group <= 4 ? &launch<T, 4>
+                                                : &launch<T, 8>;
+  return fn(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new, out, part, blk_sum,
+            mass, batch, length, nblk, nb_cap, block, kvs, hp, hd, vec16, stream);
 }
 
 }  // namespace
@@ -363,27 +568,33 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  k_new/v_new null: no fresh lane.
-// mass null: no mass (mass_h and blk_m are then unused).  vec16: every K/V
-// row start is 16-byte aligned and hd * sizeof(T) is a multiple of 16.
-// Returns cudaGetLastError() after the launches.
+// part: float32 scratch of B * HP * nsplit * (hd + 2) partial records, with
+// nsplit = ceil(nblk / max(1, 64 / block)) (ops.kv_splits).  mass null: no
+// mass (blk_sum, float32 scratch [B, HP, nblk], is then unused).  vec16:
+// every K/V row start is 16-byte aligned and hd * sizeof(T) is a multiple of
+// 16.  Two launches; returns cudaGetLastError() after them.
 int rainbow_attention_launch(int dtype, const void* q, const void* cap_k,
                              const void* cap_v, const void* hot_k,
                              const void* hot_v, const int* vidx,
                              const void* k_new, const void* v_new, void* out,
-                             float* mass_h, float* blk_m, float* mass,
+                             float* part, float* blk_sum, float* mass,
                              int batch, int length, int nblk, int nb_cap,
                              int block, int kvs, int hp, int hd, int vec16,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mass == nullptr) mass_h = blk_m = nullptr;
+  if (block < 1 || block > kMaxBlock || hd < 1 || hd > kMaxHd || kvs < 1 || hp % kvs != 0 ||
+      hp / kvs > kMaxGroup)
+    return (int)cudaErrorInvalidValue;
+  if (mass == nullptr) blk_sum = nullptr;
   if (dtype == 0)
-    return launch<float>(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new,
-                         out, mass_h, blk_m, mass, batch, length, nblk, nb_cap,
-                         block, kvs, hp, hd, vec16, s);
+    return launch_group<float>(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new, v_new,
+                               out, part, blk_sum, mass, batch, length, nblk,
+                               nb_cap, block, kvs, hp, hd, vec16, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new,
-                                 v_new, out, mass_h, blk_m, mass, batch, length,
-                                 nblk, nb_cap, block, kvs, hp, hd, vec16, s);
+    return launch_group<__nv_bfloat16>(q, cap_k, cap_v, hot_k, hot_v, vidx, k_new,
+                                       v_new, out, part, blk_sum, mass, batch,
+                                       length, nblk, nb_cap, block, kvs, hp, hd,
+                                       vec16, s);
   return (int)cudaErrorInvalidValue;
 }
 

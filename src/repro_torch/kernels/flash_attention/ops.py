@@ -8,6 +8,12 @@ q, k and the kernel's log-sum-exp in float32 plain PyTorch
 (`ref.flash_attention_bwd_ref`): the JAX package has no backward kernel
 either (its gradient is XLA's autodiff of ``attend_chunked``).
 `flash_attention.launches` counts the forward kernel's launches.
+
+The forward has two kernels, chosen by q's dtype (`flash_route`): bfloat16,
+the training path's dtype, runs on the tensor cores ("mma"), float32, the
+golden and parity dtype, on the CUDA cores ("simt"), where TF32 products
+would miss its float32 tolerance.  This is a dispatch, not a fallback: a
+launch that fails raises.
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from repro_torch.kernels.flash_attention.ref import (
     expand_kv, flash_attention_bwd_ref, flash_attention_ref,
 )
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma"}
+_ROUTE_CODES = {"simt": 0, "mma": 1}  # flash_attention_launch's first argument
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -34,6 +41,16 @@ def _fail(msg: str) -> None:
     raise ValueError(f"flash_attention: {msg}")
 
 
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The forward kernel for q's dtype and head dim: "mma" (bfloat16, the
+    tensor cores) or "simt" (float32, the CUDA cores); raises on others."""
+    if dtype not in _ROUTES:
+        _fail(f"dtype {dtype} is not supported (float32 or bfloat16)")
+    if hd not in HEAD_DIMS:
+        _fail(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    return _ROUTES[dtype]
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, S, HP, hd], CUDA
     k: torch.Tensor,  # [B, S, KVS, hd], HP % KVS == 0
@@ -43,8 +60,6 @@ def flash_attention(
     """Launch the kernel: (out [B, S, HP, hd] in q's dtype, lse float32 [B, HP, S])."""
     if q.device.type != "cuda":
         _fail(f"the kernel runs on CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        _fail(f"dtype {q.dtype} is not supported (float32 or bfloat16)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         _fail("expected q [B, S, HP, hd] and k, v [B, S, KVS, hd]")
     b, s, hp, hd = q.shape
@@ -59,8 +74,7 @@ def flash_attention(
             _fail(f"{name} must start on a 16-byte boundary")
     if hp % kvs:
         _fail(f"{hp} query heads do not divide over {kvs} kv heads")
-    if hd not in HEAD_DIMS:
-        _fail(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    route = flash_route(q.dtype, hd)
     if min(b, s) < 1:
         _fail(f"empty input {tuple(q.shape)}")
     out = torch.empty_like(q)
@@ -69,7 +83,7 @@ def flash_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ROUTE_CODES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, s, hp, kvs, hd, int(causal),
             1.0 / math.sqrt(hd), stream,
         )

@@ -1,8 +1,10 @@
 """Wrapper of the paged decode attention kernel (csrc/rainbow_attention.cu).
 
 CPU tensors take the plain version (ref.py); CUDA tensors launch the kernel
-or raise -- there is no fallback.  `rainbow_attention.launches` counts the
-kernel launches.
+or raise -- there is no fallback.  On the card a call is two launches: the
+split kernel, one CTA per (kv head, row, split of the KV blocks, as
+`kv_splits` plans them), and the kernel that combines the splits.
+`rainbow_attention.launches` counts the calls that launch them.
 """
 from __future__ import annotations
 
@@ -17,12 +19,23 @@ from repro_torch.kernels.rainbow_attention.ref import rainbow_attention_ref
 MAX_GROUP = 8  # query heads per kv head (kMaxGroup)
 MAX_HEAD_DIM = 256  # (kMaxHd)
 MAX_BLOCK = 64  # tokens per KV block (kMaxBlock)
+SPLIT_POSITIONS = 64  # positions per split at most, whole blocks (kSplitPos)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rainbow_attention_launch": ([_I] + [_P] * 12 + [_I] * 9 + [_P], _I),
 }
+
+
+def kv_splits(nblk: int, block: int) -> tuple[int, int]:
+    """(nsplit, blocks_per_split): the split kernel's grid axis over the KV
+    blocks.  Each split covers as many whole blocks as fit in SPLIT_POSITIONS
+    positions (at least one), the last split what remains; the plan depends
+    on nblk and block only, never on the call's length, so the grid and the
+    scratch keep their shapes through a decode run."""
+    per = max(1, SPLIT_POSITIONS // block)
+    return -(-nblk // per), per
 
 
 def _fail(msg: str) -> None:
@@ -91,11 +104,15 @@ def rainbow_attention(
               f"{MAX_BLOCK}), nblk {nblk} and batch {b} out of range")
 
     out = torch.empty_like(q)
-    mass = mass_h = blk_m = None
-    if with_mass:
-        scratch = torch.empty((2, b, hp, nblk), dtype=torch.float32, device=dev)
-        mass_h, blk_m = scratch[0], scratch[1]
-        mass = torch.empty((b, nblk), dtype=torch.float32, device=dev)
+    # scratch: each (row, head, split)'s partial record -- acc [hd], max, sum --
+    # then, with the mass, each (row, head, block)'s sum within its split
+    nsplit, _ = kv_splits(nblk, block)
+    n_part = b * hp * nsplit * (hd + 2)
+    scratch = torch.empty(n_part + (b * hp * nblk if with_mass else 0),
+                          dtype=torch.float32, device=dev)
+    part = scratch[:n_part]
+    blk_sum = scratch[n_part:] if with_mass else None
+    mass = torch.empty((b, nblk), dtype=torch.float32, device=dev) if with_mass else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -110,7 +127,7 @@ def rainbow_attention(
         err = lib.rainbow_attention_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), cap_k.data_ptr(), cap_v.data_ptr(),
             hot_k.data_ptr(), hot_v.data_ptr(), vidx.data_ptr(), ptr(k_new),
-            ptr(v_new), out.data_ptr(), ptr(mass_h), ptr(blk_m), ptr(mass),
+            ptr(v_new), out.data_ptr(), part.data_ptr(), ptr(blk_sum), ptr(mass),
             b, length, nblk, nb, block, kvs, hp, hd, vec16, stream,
         )
     rainbow_attention.launches += 1

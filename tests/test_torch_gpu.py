@@ -128,6 +128,15 @@ ATTN_CASES = {
     "serve-len0": (8, 16, 8, 128, 16, 20, 10, 0, True),
     "serve-len150": (8, 16, 8, 128, 16, 20, 10, 150, True),
     "serve-len319": (8, 16, 8, 128, 16, 20, 10, 319, True),
+    # the split kernel (64 positions per split): lengths at a split boundary
+    # and one past it, a partial last split, one and sixteen blocks per split
+    "split-len64": (8, 16, 8, 128, 16, 20, 10, 64, True),
+    "split-len65": (8, 16, 8, 128, 16, 20, 10, 65, True),
+    "split-len128": (8, 16, 8, 128, 16, 20, 10, 128, True),
+    "split-nblk21": (8, 16, 8, 128, 16, 21, 10, 335, True),
+    "split-nofresh-len100": (2, 8, 2, 64, 16, 12, 4, 100, False),
+    "block64": (4, 16, 8, 128, 64, 5, 4, 250, True),
+    "block4": (4, 16, 8, 128, 4, 40, 8, 150, True),
 }
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MASS_TOL = 1e-5
@@ -156,6 +165,24 @@ def test_attention_kernel_matches_plain(case, dtype, cuda_device, rng):
     torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
     if fresh:
         torch.testing.assert_close(got[1], want[1], atol=MASS_TOL, rtol=MASS_TOL)
+
+
+def test_attention_kernel_is_deterministic(cuda_device, rng):
+    """No atomics: two calls on the same inputs give the same bits."""
+    b, hp, kvs, hd, block, nblk, hot, length, _ = ATTN_CASES["serve-len319"]
+    nb = b * nblk
+
+    def rand(*shape):
+        return t(rng.standard_normal(shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+
+    args = [rand(b, hp, hd), rand(nb, block, kvs, hd), rand(nb, block, kvs, hd),
+            rand(hot, block, kvs, hd), rand(hot, block, kvs, hd),
+            t(rng.integers(0, nb + hot, (b, nblk)).astype(np.int32)).to(cuda_device)]
+    fresh = [rand(b, kvs, hd), rand(b, kvs, hd)]
+    out1, mass1 = attn_ops.rainbow_attention(*args, length, *fresh, with_mass=True)
+    out2, mass2 = attn_ops.rainbow_attention(*args, length, *fresh, with_mass=True)
+    assert torch.equal(out1.view(torch.int16), out2.view(torch.int16))
+    assert torch.equal(mass1.view(torch.int32), mass2.view(torch.int32))
 
 
 def test_attention_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
@@ -251,6 +278,17 @@ FLASH_CASES = {
     "ragged-full-1x77x2x32": (1, 77, 2, 2, 32, False),
     "hd16-2x40x4on2x16": (2, 40, 4, 2, 16, True),
     "single-row-1x1x2x16": (1, 1, 2, 1, 16, True),
+    # ragged tiles ending inside a 16-row MMA fragment, GQA 4-on-1 at small
+    # head dims, a long ragged sequence, a non-causal one
+    "s1-1x1x4on2x128": (1, 1, 4, 2, 128, True),
+    "s17-2x17x4on2x128": (2, 17, 4, 2, 128, True),
+    "s63-1x63x4on2x64": (1, 63, 4, 2, 64, True),
+    "s64-1x64x4on2x128": (1, 64, 4, 2, 128, True),
+    "s65-1x65x4on2x128": (1, 65, 4, 2, 128, True),
+    "s1000-1x1000x4on2x128": (1, 1000, 4, 2, 128, True),
+    "gqa4-hd16-2x96x4on1x16": (2, 96, 4, 1, 16, True),
+    "gqa4-hd32-2x96x4on1x32": (2, 96, 4, 1, 32, True),
+    "full-1x200x4on2x64": (1, 200, 4, 2, 64, False),
 }
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 # bf16 out vs the plain version with P kept in float32 (as the kernel keeps
